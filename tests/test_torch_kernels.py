@@ -1,0 +1,158 @@
+"""The port's CUDA flash kernels against their plain PyTorch versions.
+
+This file imports no JAX, so it also runs on a CUDA machine without one
+(``python -m pytest --noconftest tests/test_torch_kernels.py``). The kernel
+cases need a card and skip without one; the CPU cases check what surrounds
+the kernels: the wrappers' dispatch and the plain versions against the
+port's dense attention.
+
+Tolerances: float32 outputs within 2e-5 (sums of the same float32 products
+in another order); bf16 outputs round once from float32 sums, so within
+two bf16 ulps (2**-6 relative) plus 2e-3 absolute for values near 0;
+the float32 lse within 2e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from horovod_tpu_torch.ops import flash_attention as pa
+from horovod_tpu_torch.parallel import dense_attention
+
+needs_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
+                                reason="the CUDA kernels need a card")
+KERNEL_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -6, 2e-3)}
+
+
+def _inputs(shape, seed, n=4, device="cpu", dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device, dtype) for _ in range(n)]
+
+
+def _check_all(q, k, v, do, causal, block, q_offset):
+    """Every kernel against its plain version on the same inputs."""
+    rtol, atol = KERNEL_TOL[q.dtype]
+    args = (causal, q.shape[-1] ** -0.5, block, block, q_offset)
+    o, lse = pa.flash_fwd(q, k, v, *args)
+    o_ref, lse_ref = pa.flash_fwd_plain(q, k, v, *args)
+    torch.testing.assert_close(o, o_ref, rtol=rtol, atol=atol)
+    torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
+    delta = pa.row_delta(o_ref, do)
+    torch.testing.assert_close(
+        pa.flash_bwd_dq(q, k, v, do, lse_ref, delta, *args),
+        pa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, *args),
+        rtol=rtol, atol=atol)
+    for got, want in zip(
+            pa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, *args),
+            pa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, *args)):
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,q_offset", [(False, 0), (True, 0),
+                                             (True, 64)])
+def test_kernels_match_plain_versions(dtype, head_dim, causal, q_offset):
+    seq_q = 64 if q_offset else 128
+    (q,) = _inputs((2, seq_q, 3, head_dim), 20, n=1, device="cuda",
+                   dtype=dtype)
+    k, v = _inputs((2, 128, 3, head_dim), 21, n=2, device="cuda",
+                   dtype=dtype)
+    (do,) = _inputs((2, seq_q, 3, head_dim), 22, n=1, device="cuda",
+                    dtype=dtype)
+    _check_all(q, k, v, do, causal, 64, q_offset)
+
+
+@needs_cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernels_handle_ragged_tiles(causal):
+    """Sequences that are not multiples of the kernels' 64-row tiles."""
+    q, k, v, do = _inputs((2, 80, 2, 32), 23, device="cuda")
+    _check_all(q, k, v, do, causal, 16, 0)
+
+
+@needs_cuda
+def test_autograd_launches_each_kernel_once():
+    q, k, v, do = _inputs((1, 128, 2, 64), 24, device="cuda")
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    pa.reset_launch_counts()
+    pa.flash_attention(q, k, v, causal=True).backward(do)
+    torch.cuda.synchronize()
+    assert pa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                  "flash_bwd_dkv": 1}
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    dense_attention(*ref, causal=True).backward(do)
+    for got, want in zip((q.grad, k.grad, v.grad), ref):
+        torch.testing.assert_close(got, want.grad, rtol=5e-4, atol=5e-4)
+
+
+@needs_cuda
+def test_kernel_rejects_unsupported_inputs():
+    q = torch.ones((1, 64, 1, 48), device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.flash_attention(q, q, q)
+    q = torch.ones((1, 64, 1, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        pa.flash_attention(q, q, q)
+    q = torch.ones((1, 64, 1, 64), device="cuda")
+    with pytest.raises(ValueError, match="per-row"):
+        pa.flash_bwd_dq(q, q, q, q, torch.zeros(1, 64), torch.zeros(1, 64),
+                        True, 0.125, 64, 64, 0)  # lse on the CPU
+
+
+# -- on the CPU ---------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_forward_and_grads_match_dense_attention(causal):
+    q, k, v, do = _inputs((2, 64, 2, 32), 30)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = pa.flash_attention(q, k, v, causal=causal, block_q=16, block_k=32)
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = dense_attention(*ref, causal=causal)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    out.backward(do)
+    want.backward(do)
+    for got, r in zip((q.grad, k.grad, v.grad), ref):
+        torch.testing.assert_close(got, r.grad, rtol=5e-4, atol=5e-4)
+
+
+def test_plain_bf16_keeps_dtypes():
+    """O and the gradients come back in the input dtype, lse in float32."""
+    q, k, v, do = _inputs((1, 32, 2, 16), 31, dtype=torch.bfloat16)
+    o, lse = pa.flash_fwd(q, k, v, True, 0.25, 32, 32, 0)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    dq, dk, dv = pa.flash_bwd(q, k, v, o, lse, do, True, 0.25, 32, 32, 0)
+    assert {t.dtype for t in (dq, dk, dv)} == {torch.bfloat16}
+
+
+@pytest.mark.parametrize("k_shape,dtype,error,match", [
+    ((2, 32, 3, 32), torch.float32, ValueError, "shapes"),
+    ((2, 32, 2, 64), torch.float32, ValueError, "shapes"),
+    ((2, 48, 3, 64), torch.float16, TypeError, "bfloat16"),
+])
+def test_kernel_input_checks(k_shape, dtype, error, match):
+    """What the wrappers check before handing pointers to a kernel (the
+    checks need no card)."""
+    q = torch.zeros((2, 64, 3, 64), dtype=dtype)
+    k = torch.zeros(k_shape, dtype=dtype)
+    with pytest.raises(error, match=match):
+        pa._check_kernel_inputs("flash_fwd", q, k, k)
+    code, tensors = pa._check_kernel_inputs(
+        "flash_bwd_dq", q.float(), q.float()[:, :32], q.float()[:, :32],
+        q.float())
+    assert code == 0 and all(t.is_contiguous() for t in tensors)
+
+
+def test_cpu_tensors_never_load_a_kernel(monkeypatch):
+    """The wrappers pick the plain version only because the tensor lies on
+    the CPU; the kernel library is not even loaded."""
+    def refuse(name):
+        raise AssertionError(f"kernel {name} loaded for CPU tensors")
+
+    monkeypatch.setattr(pa._build, "load", refuse)
+    q, k, v, do = _inputs((1, 32, 1, 16), 32)
+    q.requires_grad_()
+    pa.flash_attention(q, k, v, causal=True).backward(do)
+    assert q.grad is not None
