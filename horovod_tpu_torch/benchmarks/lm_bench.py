@@ -80,15 +80,23 @@ def model_flops_per_step(args, batch: int) -> float:
 
 
 # kernel-name substrings -> the group a kernel's device time is reported in
+# (K1 and K3 by either variant: CUDA-core or tensor-core)
 _KERNEL_GROUPS = (
     ("flash_fwd_kernel", "K1 flash_fwd"),
+    ("flash_fwd_wgmma_kernel", "K1 flash_fwd"),
     ("flash_bwd_dq_kernel", "K2 flash_bwd_dq"),
     ("flash_bwd_dkv_kernel", "K3 flash_bwd_dkv"),
+    ("flash_bwd_dkv_wgmma_kernel", "K3 flash_bwd_dkv"),
     ("nccl", "nccl"),
     ("multi_tensor_apply", "optimizer"),
     ("gemm", "matmul"), ("nvjet", "matmul"), ("cutlass", "matmul"),
     ("xmma", "matmul"),
 )
+
+
+def kernel_group(name: str) -> str:
+    """The profile group of a device kernel, by its (mangled) name."""
+    return next((g for sub, g in _KERNEL_GROUPS if sub in name), "other")
 
 
 def profile_steps(run_batch, wait, steps: int) -> dict:
@@ -116,8 +124,7 @@ def profile_steps(run_batch, wait, steps: int) -> dict:
                and evt.self_device_time_total > 0]
     groups: dict = {}
     for name, ms in kernels:
-        group = next((g for sub, g in _KERNEL_GROUPS if sub in name),
-                     "other")
+        group = kernel_group(name)
         groups[group] = groups.get(group, 0.0) + ms / steps
     busy_ms = sum(ms for _, ms in kernels) / steps
     top = sorted(kernels, key=lambda kv: -kv[1])[:10]

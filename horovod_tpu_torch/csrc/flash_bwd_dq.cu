@@ -150,7 +150,7 @@ int run_dq(const void* q, const void* k, const void* v, const void* dout,
   const size_t smem =
       sizeof(float) * (4 * kBlockM * ld + kBlockM * kLdS + 2 * kBlockM);
   dim3 grid(B * H, (Tq + kBlockM - 1) / kBlockM);
-  return launch(flash_bwd_dq_kernel<D, T>, grid, smem, stream,
+  return launch(flash_bwd_dq_kernel<D, T>, grid, kThreads, smem, stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const T*>(dout), lse,
                 delta, static_cast<T*>(dq), H, Tq, Tk, causal, q_offset,

@@ -7,10 +7,13 @@
 // loops over the other sequence axis; that loop takes the place of the
 // sequential ("arbitrary") grid axis of the Pallas kernels.
 //
-// Every product runs in float32 on the CUDA cores, from tiles staged in
-// shared memory as float32 (bf16 inputs are widened on load), as the Pallas
-// kernels widen every block with astype(float32). No tensor-core path yet:
-// P is never rounded to bf16 before a product.
+// The CUDA-core kernels (every K2, and K1/K3 for float32 or a bf16 head
+// dim the tensor-core variant does not take) compute every product in
+// float32 on the CUDA cores, from tiles staged in shared memory as float32
+// (bf16 inputs are widened on load), as the Pallas kernels widen every
+// block with astype(float32): P is never rounded to bf16 before a product.
+// The tensor-core variants of K1 and K3 (bf16, head dim 64 or 128) build on
+// hopper.cuh and say in their own notes where they round.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,13 +25,20 @@ namespace hvdflash {
 
 constexpr int kBlockM = 64;    // q rows per tile
 constexpr int kBlockN = 64;    // k rows per tile (equal to kBlockM: one loader)
-constexpr int kThreads = 256;  // a 16 x 16 thread grid; 4 x 4 cells each
+constexpr int kThreads = 256;  // CUDA-core kernels: a 16 x 16 thread grid
 constexpr int kLdS = kBlockN + 1;  // odd row stride of score tiles in smem
 // float32 finfo.min: the masked-score sentinel of the Pallas kernels
 // (_NEG_INF), kept bit-identical so masked rows behave the same.
 constexpr float kNegInf = -3.402823466e+38f;
 
 enum DType { kF32 = 0, kBF16 = 1 };
+// Which kernel of a library a call asks for (flash_attention.py decides).
+enum Variant { kCudaCore = 0, kTensorCore = 1 };
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// A CUresult of cuTensorMapEncodeTiled (hopper.cuh) comes back as
+// kCuResultBase + CUresult, apart from the cudaError_t codes.
+constexpr int kCuResultBase = 100000;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -85,16 +95,17 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Launch one instantiation with `smem` bytes of dynamic shared memory and
-// report the launch's own error: a launch refused for its resources never
-// runs, and a later synchronize would not say so.
+// Launch one instantiation with `threads` threads a block and `smem` bytes
+// of dynamic shared memory, and report the launch's own error: a launch
+// refused for its resources never runs, and a later synchronize would not
+// say so.
 template <typename Kernel, typename... Args>
-inline int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                  Args... args) {
+inline int launch(Kernel kernel, dim3 grid, int threads, size_t smem,
+                  cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -107,5 +118,7 @@ inline bool tiles_fit(int len) {
 
 // Every library exports its own copy, so the wrapper can name an error.
 extern "C" const char* hvd_flash_error_string(int code) {
+  if (code >= hvdflash::kCuResultBase)
+    return "cuTensorMapEncodeTiled refused the tensor map";
   return cudaGetErrorString((cudaError_t)code);
 }

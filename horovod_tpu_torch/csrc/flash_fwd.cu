@@ -4,20 +4,39 @@
 // Replaces: horovod_tpu/ops/pallas_attention.py:_fwd_kernel (launched by
 // _fwd_impl through pl.pallas_call).
 //
-// What bounds it on an H100: the products. At the LM's shape ([8, 1024, 12,
-// 64] bf16, causal) the kernel needs 12.9 GFLOP against 50 MB of traffic,
-// so even at the bf16 tensor-core rate it is bound by operations. This
-// first version computes every product in float32 on the CUDA cores (67
-// TFLOP/s peak), so it is far from that bound; the tensor-core (wgmma)
-// redesign is queued in ROADMAP.md.
+// Two variants; flash_attention.py picks one from (dtype, head_dim) and
+// asks for it by number, and this file never falls back from one to the
+// other.
 //
-// Design: one block per (batch*head, 64-row q tile). The block stages its
-// Q tile (times scale) once, then streams 64-row K/V tiles through shared
-// memory, keeping a running row max m, denominator l and a float32 output
-// accumulator in registers: the [T, T] score matrix never reaches device
-// memory, and K/V are read once per q tile. Causal blocks stop at the last
-// k tile that any of their rows can see, halving causal work.
+// Tensor-core variant (flash_fwd_wgmma_kernel; bf16, head dim 64 or 128).
+// What bounds it on an H100: at the LM's shape ([8, 1024, 12, 64] bf16,
+// causal) it needs 12.9 GFLOP of bf16 products (13.0 us at 989 TFLOP/s)
+// and 50.7 MB of traffic (15.1 us at 3.35 TB/s), so the bound is bytes,
+// narrowly, and both limits matter. What the design does about it: the
+// products run as wgmma on the tensor cores (m64n64k16 for S, m64nDk16 for
+// P V), fed by TMA. One warpgroup owns 64 q rows; its Q tile is loaded
+// once, and K/V tiles stream through a two-stage ring of 128-byte-swizzled
+// shared memory, each stage completing on an mbarrier, so the next tile's
+// load overlaps this tile's products. Q, K and V are each read once per q
+// tile and O and lse written once; S and P never leave registers (the FA3
+// layout: S = Q K^T with Q and K K-major; O += P V with P as the register
+// A operand and V MN-major with trans-b). The online softmax runs in the
+// log2 domain (exp2f of S * scale * log2(e)); masking touches only the
+// tiles that cross the causal diagonal or the ragged end of Tk. Causal
+// blocks stop at the last visible k tile, and the grid runs the heaviest q
+// tiles (the last) first.
+// Rounding: P is rounded to bf16 (round to nearest even) before P V, the
+// only place this variant rounds besides O's store. The row sum l is taken
+// from the float32 P, so lse keeps float32 accuracy.
+//
+// CUDA-core variant (flash_fwd_kernel; float32, and bf16 at head dims 16 and
+// 32): every product in float32 on the CUDA cores (67 TFLOP/s peak), from
+// tiles staged in padded float32 shared memory. One block per (batch*head,
+// 64-row q tile) stages its Q tile (times scale) once, then streams K/V
+// tiles, keeping the running max m, denominator l and a float32 output
+// accumulator in registers.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace hvdflash {
 
@@ -167,7 +186,7 @@ int run_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   const size_t smem =
       sizeof(float) * (3 * kBlockM * ld + kBlockM * kLdS + 3 * kBlockM);
   dim3 grid(B * H, (Tq + kBlockM - 1) / kBlockM);
-  return launch(flash_fwd_kernel<D, T>, grid, smem, stream,
+  return launch(flash_fwd_kernel<D, T>, grid, kThreads, smem, stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<T*>(o), lse, H, Tq, Tk,
                 causal, q_offset, scale);
@@ -195,17 +214,217 @@ int dispatch_fwd(int D, const void* q, const void* k, const void* v, void* o,
   }
 }
 
+
+// -- tensor-core variant -----------------------------------------------------
+
+constexpr int kFwdStages = 2;  // K/V ring
+
+template <int D>
+constexpr size_t fwd_tc_smem() {
+  // 1024 bytes of slack to align the tiles, Q, the K/V ring, 3 barriers
+  return 1024 + (size_t)(1 + 2 * kFwdStages) * 64 * D * 2 + 64;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int H, int Tq, int Tk,
+                           int causal, int q_offset, float scale_log2) {
+  constexpr int kTile = 64 * D * 2;  // bytes of one 64-row tile
+  constexpr int kAcc = D / 2;        // O accumulator floats per thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Qs = smem;
+  uint8_t* Ks = Qs + kTile;               // [kFwdStages] tiles
+  uint8_t* Vs = Ks + kFwdStages * kTile;  // [kFwdStages] tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + kFwdStages * kTile);
+  uint64_t* q_bar = bars;       // Q, once
+  uint64_t* kv_bar = bars + 1;  // [kFwdStages]: K and V of one k tile
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  // the last q tiles see the most k tiles under causal masking: run first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int row0 = 16 * warp + lane / 4;  // rows row0 and row0 + 8
+  const int col0 = 2 * (lane % 4);        // columns 8j + col0 + {0, 1}
+
+  int n_k = (Tk + 63) / 64;
+  if (causal) n_k = min(n_k, (q_offset + q0 + 63) / 64 + 1);
+
+  auto load_kv = [&](int stage, int kt) {
+    mbar_expect_tx(&kv_bar[stage], 2 * kTile);
+    tma_load_tile<D>(Ks + stage * kTile, &k_map, &kv_bar[stage], h, kt * 64,
+                     b);
+    tma_load_tile<D>(Vs + stage * kTile, &v_map, &kv_bar[stage], h, kt * 64,
+                     b);
+  };
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kFwdStages; ++s) mbar_init(&kv_bar[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, kTile);
+    tma_load_tile<D>(Qs, &q_map, q_bar, h, q0, b);
+    for (int s = 0; s < kFwdStages && s < n_k; ++s) load_kv(s, s);
+  }
+
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};  // running max, log2 domain
+  float l_r[2] = {0.f, 0.f};          // this thread's share of the row sums
+  const uint32_t q_tile = smem_u32(Qs);
+  mbar_wait(q_bar, 0);
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int stage = kt % kFwdStages, k0 = kt * 64;
+    mbar_wait(&kv_bar[stage], (kt / kFwdStages) & 1);
+    const uint32_t k_tile = smem_u32(Ks + stage * kTile);
+    const uint32_t v_tile = smem_u32(Vs + stage * kTile);
+
+    // S = Q K^T (64 x 64), float32 accumulate
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_kmajor(q_tile, kk), desc_kmajor(k_tile, kk),
+                   kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // scale into the log2 domain; mask only the edge tiles: columns past
+    // Tk are no column at all (-inf), the causal future takes the Pallas
+    // kernels' finfo.min sentinel
+    const bool edge = k0 + 64 > Tk || (causal && k0 + 63 > q_offset + q0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * scale_log2;
+      if (edge) {
+        const int r = row0 + 8 * ((i % 4) / 2);
+        const int c = k0 + 8 * (i / 4) + col0 + (i % 2);
+        if (c >= Tk)
+          x = -INFINITY;
+        else if (causal && q_offset + q0 + r < c)
+          x = kNegInf;
+      }
+      s[i] = x;
+    }
+
+    // online softmax; a row's four values per 8 columns sit in 4 lanes
+    float m_new[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      m_new[(i % 4) / 2] = fmaxf(m_new[(i % 4) / 2], s[i]);
+    float corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
+      corr[r] = m_r[r] == kNegInf ? 0.f : exp2f(m_r[r] - m_new[r]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i % 4) / 2;
+      float p = exp2f(s[i] - m_new[r]);
+      if (causal && m_new[r] == kNegInf) p = 0.f;
+      s[i] = p;
+      psum[r] += p;  // l from the float32 P
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] = l_r[r] * corr[r] + psum[r];
+      m_r[r] = m_new[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] *= corr[(i % 4) / 2];
+
+    // O += P V: P rounded to bf16 as the register A operand, V MN-major
+    uint32_t pa[4][4];
+    to_a_frags(s, pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb<D>(acc, pa[kk], desc_mnmajor(v_tile, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+
+    __syncthreads();  // every warp is done with this stage: refill it
+    if (tid == 0 && kt + kFwdStages < n_k) load_kv(stage, kt + kFwdStages);
+  }
+
+  const size_t row_stride = (size_t)H * D;
+  __nv_bfloat16* o_base = o + ((size_t)b * Tq * H + h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float l_safe = fmaxf(l, 1e-30f);
+    const int t = q0 + row0 + 8 * r;
+    if (t >= Tq) continue;
+    __nv_bfloat16* row = o_base + (size_t)t * row_stride + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] / l_safe, acc[4 * j + 2 * r + 1] / l_safe);
+    // a row that saw only the sentinel keeps it, as m + log(1e-30) does
+    if (lane % 4 == 0)
+      lse[(size_t)bh * Tq + t] =
+          (m_r[r] == kNegInf ? kNegInf : m_r[r] * kLn2) + logf(l_safe);
+  }
+}
+
+template <int D>
+int run_fwd_tc(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int Tq, int Tk, int causal,
+               int q_offset, float scale, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  int rc = encode_bthd_map(&q_map, q, B, Tq, H, D);
+  if (rc == 0) rc = encode_bthd_map(&k_map, k, B, Tk, H, D);
+  if (rc == 0) rc = encode_bthd_map(&v_map, v, B, Tk, H, D);
+  if (rc != 0) return rc;
+  dim3 grid(B * H, (Tq + 63) / 64);
+  return launch(flash_fwd_wgmma_kernel<D>, grid, kWgThreads, fwd_tc_smem<D>(),
+                stream, q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o),
+                lse, H, Tq, Tk, causal, q_offset, scale * kLog2e);
+}
+
 }  // namespace hvdflash
 
 extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int H, int Tq, int Tk,
                              int D, int dtype, int causal, int q_offset,
-                             float scale, void* stream) {
+                             float scale, int variant, void* stream) {
   using namespace hvdflash;
   if (B < 1 || H < 1 || !tiles_fit(Tq) || Tk < 1 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
+  if (variant == kTensorCore) {
+    // the wrapper asks for this variant only where it applies; anything
+    // else is an error, never a silent switch to the other kernel
+    if (dtype != kBF16 || !tma_aligned(q) || !tma_aligned(k) ||
+        !tma_aligned(v))
+      return (int)cudaErrorInvalidValue;
+    if (D == 64)
+      return run_fwd_tc<64>(q, k, v, o, lse_f, B, H, Tq, Tk, causal,
+                            q_offset, scale, s);
+    if (D == 128)
+      return run_fwd_tc<128>(q, k, v, o, lse_f, B, H, Tq, Tk, causal,
+                             q_offset, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (variant != kCudaCore) return (int)cudaErrorInvalidValue;
   if (dtype == kF32)
     return dispatch_fwd<float>(D, q, k, v, o, lse_f, B, H, Tq, Tk, causal,
                                q_offset, scale, s);

@@ -26,6 +26,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "horovod_tpu_torch"
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# after the source: the tensor-core kernels encode their TMA tensor maps
+# with libcuda's cuTensorMapEncodeTiled
+LINK_FLAGS = ("-lcuda",)
 _NVCC_TIMEOUT_S = 600
 
 _lock = threading.Lock()
@@ -49,7 +52,7 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
@@ -71,7 +74,7 @@ def build_all(names=KERNELS) -> float:
         for name, path in todo:
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
+                   str(CSRC / f"{name}.cu"), *LINK_FLAGS]
             procs.append((name, path, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

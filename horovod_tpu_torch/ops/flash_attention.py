@@ -17,8 +17,26 @@ K2    ``flash_bwd_dq``   ``pallas_attention.py:_bwd_dq_kernel``
 K3    ``flash_bwd_dkv``  ``pallas_attention.py:_bwd_dkv_kernel``
 ====  =================  ==========================================
 
+K1 and K3 have two variants each, and ``kernel_variant(name, dtype,
+head_dim)`` alone picks one:
+
+- ``"tensor-core wgmma+tma"`` for bfloat16 at head_dim 64 or 128
+  (``flash_fwd_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``): wgmma
+  products fed by TMA through an mbarrier ring. P (and in K3 dS) are
+  rounded to bf16 before the products that take them, so the outputs'
+  tolerance against the plain versions is wider (``TC_TOL``);
+- ``"cuda-core f32"`` for everything else (float32 at any head_dim, bf16
+  at 16 and 32), and always for K2: every product in float32 on the CUDA
+  cores, P never rounded, as in the first port.
+
+The wrapper asks its library for the chosen variant by number. If that
+kernel cannot build or launch, the wrapper raises; it never retries on
+the other variant. The tensor-core variant also needs 16-byte-aligned
+tensors for TMA, and the wrapper raises on any that are not.
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and counts
-the launch in its ``launches`` attribute. For CPU tensors it runs the
+the launch in its ``launches`` attribute, and K1 and K3 count their
+tensor-core launches in ``tc_launches`` too. For CPU tensors it runs the
 kernel's plain PyTorch version instead: a blockwise loop with the Pallas
 kernel's own tiling (``block_q``/``block_k``), masking and sentinels, which
 the CPU tests hold against the JAX kernel in interpret mode. The CUDA
@@ -42,17 +60,43 @@ _NEG_INF = float(torch.finfo(torch.float32).min)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
+CUDA_CORE = "cuda-core f32"
+TENSOR_CORE = "tensor-core wgmma+tma"
+_VARIANT_CODES = {CUDA_CORE: 0, TENSOR_CORE: 1}  # csrc/flash_common.cuh
+_TC_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+_TC_HEAD_DIMS = (64, 128)  # one or two 128-byte swizzle atoms a row
+# bf16 outputs of the tensor-core variant against the plain versions
+# (rtol, atol). rtol: two bf16 ulps, as for the CUDA-core kernels (both
+# sides round their float32 sums to bf16 once). atol: P (and dS) round to
+# bf16 before their product, a relative error of at most 2**-9 per term,
+# so an output moves by at most 2**-9 * sum |terms|. With unit-scale
+# inputs and T <= 1024 that sum stays below 8: for O a P-weighted mean of
+# |V| (at most max |V|, about 5), for dV and dK a column sum of P (about
+# ln T + 1) times a unit |dO| or |Q| * scale; hence 2**-9 * 8 = 2**-6. The
+# largest errors measured against it are in PERF.md.
+TC_TOL = (2 ** -6, 2 ** -6)
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = {
+_ARGTYPES = {  # the last int of K1 and K3 is the variant
     "flash_fwd": ("hvd_flash_fwd",
-                  [_P, _P, _P, _P, _P] + [_I] * 8 + [_F, _P]),
+                  [_P, _P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P]),
     "flash_bwd_dq": ("hvd_flash_bwd_dq",
                      [_P] * 7 + [_I] * 8 + [_F, _P]),
     "flash_bwd_dkv": ("hvd_flash_bwd_dkv",
-                      [_P] * 8 + [_I] * 8 + [_F, _P]),
+                      [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
 }
+
+
+def kernel_variant(name: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The variant kernel ``name`` launches for CUDA tensors of ``dtype``
+    and ``head_dim``: tensor cores for K1 and K3 at bf16 and head_dim 64
+    or 128, the CUDA-core float32 kernel otherwise."""
+    if (name in _TC_KERNELS and dtype == torch.bfloat16
+            and head_dim in _TC_HEAD_DIMS):
+        return TENSOR_CORE
+    return CUDA_CORE
 
 
 # -- layout helpers (the JAX package's _to_bh / _from_bh) ---------------------
@@ -214,6 +258,16 @@ def _check_kernel_inputs(name, q, k, v, do=None):
     return _KERNEL_DTYPES[q.dtype], [t.contiguous() for t in tensors]
 
 
+def _check_tma_alignment(name, *tensors):
+    """TMA reads from 16-byte-aligned addresses only; a contiguous view at
+    an odd offset into its storage is refused, not copied."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the tensor-core kernel needs "
+                             "16-byte-aligned tensors (TMA), got one at "
+                             f"address {t.data_ptr():#x}")
+
+
 def _rows(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """lse or delta: float32 [B*H, Tq] on q's device."""
     want = (q.shape[0] * q.shape[2], q.shape[1])
@@ -242,15 +296,27 @@ def flash_fwd(q, k, v, causal, scale, block_q, block_k, q_offset):
     if not q.is_cuda:
         return flash_fwd_plain(q, k, v, causal, scale, block_q, block_k,
                                q_offset)
+    variant = kernel_variant("flash_fwd", q.dtype, q.shape[-1])
+    out = run_flash_fwd(q, k, v, causal, scale, q_offset, variant)
+    flash_fwd.launches += 1
+    flash_fwd.tc_launches += variant == TENSOR_CORE
+    return out
+
+
+def run_flash_fwd(q, k, v, causal, scale, q_offset, variant):
+    """Launch K1's ``variant`` on CUDA tensors, uncounted (the wrapper
+    counts); chip_smoke.py times the CUDA-core variant through it."""
     code, (q, k, v) = _check_kernel_inputs("flash_fwd", q, k, v)
     batch, seq_q, heads, head_dim = q.shape
+    if variant == TENSOR_CORE:
+        _check_tma_alignment("flash_fwd", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((batch * heads, seq_q), dtype=torch.float32,
                       device=q.device)
     _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), batch, heads, seq_q, k.shape[1],
-            head_dim, code, int(causal), q_offset, scale)
-    flash_fwd.launches += 1
+            head_dim, code, int(causal), q_offset, scale,
+            _VARIANT_CODES[variant])
     return o, lse
 
 
@@ -280,33 +346,56 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, block_q, block_k,
     if not q.is_cuda:
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale,
                                    block_q, block_k, q_offset)
+    variant = kernel_variant("flash_bwd_dkv", q.dtype, q.shape[-1])
+    out = run_flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, q_offset,
+                            variant)
+    flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.tc_launches += variant == TENSOR_CORE
+    return out
+
+
+def run_flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, q_offset,
+                      variant):
+    """Launch K3's ``variant`` on CUDA tensors, uncounted (the wrapper
+    counts)."""
     code, (q, k, v, do) = _check_kernel_inputs("flash_bwd_dkv", q, k, v,
                                                do)
     batch, seq_q, heads, head_dim = q.shape
     lse, delta = _rows(lse, q), _rows(delta, q)
+    if variant == TENSOR_CORE:
+        _check_tma_alignment("flash_bwd_dkv", q, k, v, do, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("flash_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), batch, heads, seq_q, k.shape[1],
-            head_dim, code, int(causal), q_offset, scale)
-    flash_bwd_dkv.launches += 1
+            head_dim, code, int(causal), q_offset, scale,
+            _VARIANT_CODES[variant])
     return dk, dv
 
 
-flash_fwd.launches = 0
+flash_fwd.launches = flash_fwd.tc_launches = 0
 flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.tc_launches = 0
 KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 
 
 def reset_launch_counts() -> None:
     for wrapper in KERNEL_WRAPPERS:
         wrapper.launches = 0
+        if wrapper.__name__ in _TC_KERNELS:
+            wrapper.tc_launches = 0
 
 
 def launch_counts() -> dict:
     return {wrapper.__name__: wrapper.launches for wrapper in KERNEL_WRAPPERS}
+
+
+def tc_launch_counts() -> dict:
+    """Launches of the tensor-core variant, by kernel (K1 and K3)."""
+    return {wrapper.__name__: wrapper.tc_launches
+            for wrapper in KERNEL_WRAPPERS
+            if wrapper.__name__ in _TC_KERNELS}
 
 
 def row_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:

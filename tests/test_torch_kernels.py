@@ -7,9 +7,13 @@ the kernels: the wrappers' dispatch and the plain versions against the
 port's dense attention.
 
 Tolerances: float32 outputs within 2e-5 (sums of the same float32 products
-in another order); bf16 outputs round once from float32 sums, so within
-two bf16 ulps (2**-6 relative) plus 2e-3 absolute for values near 0;
-the float32 lse within 2e-5.
+in another order); bf16 outputs of the CUDA-core kernels round once from
+float32 sums, so within two bf16 ulps (2**-6 relative) plus 2e-3 absolute
+for values near 0; the float32 lse within 2e-5. The tensor-core variant
+of K1 and K3 (bf16 at head_dim 64 and 128) also rounds P, and in K3 dS,
+to bf16 before the products that take them, so its O, dK and dV get the
+wider ``pa.TC_TOL`` (its derivation is beside it); lse keeps 2e-5, since
+the row sums are taken from the float32 P.
 """
 
 import numpy as np
@@ -30,19 +34,28 @@ def _inputs(shape, seed, n=4, device="cpu", dtype=torch.float32):
             .to(device, dtype) for _ in range(n)]
 
 
+def _tol(name, q):
+    """(rtol, atol) of kernel ``name``'s outputs for inputs like ``q``."""
+    if pa.kernel_variant(name, q.dtype, q.shape[-1]) == pa.TENSOR_CORE:
+        return pa.TC_TOL
+    return KERNEL_TOL[q.dtype]
+
+
 def _check_all(q, k, v, do, causal, block, q_offset):
     """Every kernel against its plain version on the same inputs."""
-    rtol, atol = KERNEL_TOL[q.dtype]
     args = (causal, q.shape[-1] ** -0.5, block, block, q_offset)
     o, lse = pa.flash_fwd(q, k, v, *args)
     o_ref, lse_ref = pa.flash_fwd_plain(q, k, v, *args)
+    rtol, atol = _tol("flash_fwd", q)
     torch.testing.assert_close(o, o_ref, rtol=rtol, atol=atol)
     torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
     delta = pa.row_delta(o_ref, do)
+    rtol, atol = _tol("flash_bwd_dq", q)
     torch.testing.assert_close(
         pa.flash_bwd_dq(q, k, v, do, lse_ref, delta, *args),
         pa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, *args),
         rtol=rtol, atol=atol)
+    rtol, atol = _tol("flash_bwd_dkv", q)
     for got, want in zip(
             pa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, *args),
             pa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, *args)):
@@ -71,6 +84,44 @@ def test_kernels_handle_ragged_tiles(causal):
     """Sequences that are not multiples of the kernels' 64-row tiles."""
     q, k, v, do = _inputs((2, 80, 2, 32), 23, device="cuda")
     _check_all(q, k, v, do, causal, 16, 0)
+
+
+@needs_cuda
+@pytest.mark.parametrize("shape,causal,block,q_offset", [
+    ((2, 1024, 2, 64), True, 512, 0),     # the LM's sequence and width
+    ((2, 200, 3, 64), True, 40, 0),       # ragged T: TMA zero fill, masks
+    ((2, 200, 3, 64), False, 40, 0),
+    ((2, 128, 3, 64), True, 64, 128),     # q_offset, seq_k 256 below
+    ((2, 256, 3, 64), False, 64, 0),
+    ((1, 192, 2, 128), False, 64, 0),     # two swizzle atoms a row
+    ((2, 200, 2, 128), True, 40, 0),
+])
+def test_tensor_core_variant_matches_plain_versions(shape, causal, block,
+                                                    q_offset):
+    """bf16 K1 and K3 take the tensor-core variant, and only it."""
+    batch, seq_q, heads, head_dim = shape
+    seq_k = 256 if q_offset else seq_q
+    q, do = _inputs(shape, 25, n=2, device="cuda", dtype=torch.bfloat16)
+    k, v = _inputs((batch, seq_k, heads, head_dim), 26, n=2, device="cuda",
+                   dtype=torch.bfloat16)
+    pa.reset_launch_counts()
+    _check_all(q, k, v, do, causal, block, q_offset)
+    assert pa.tc_launch_counts() == {"flash_fwd": 1, "flash_bwd_dkv": 1}
+    assert pa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                  "flash_bwd_dkv": 1}
+
+
+@needs_cuda
+def test_tensor_core_variant_refuses_misaligned_tensors():
+    """TMA needs 16-byte-aligned bases: the wrapper raises, it does not
+    switch to the other variant."""
+    flat = torch.zeros(2 * 64 * 64 + 1, device="cuda", dtype=torch.bfloat16)
+    q = flat[1:].view(2, 64, 1, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    pa.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.flash_fwd(q, q, q, True, 0.125, 64, 64, 0)
+    assert pa.launch_counts()["flash_fwd"] == 0
 
 
 @needs_cuda
@@ -143,6 +194,53 @@ def test_kernel_input_checks(k_shape, dtype, error, match):
         "flash_bwd_dq", q.float(), q.float()[:, :32], q.float()[:, :32],
         q.float())
     assert code == 0 and all(t.is_contiguous() for t in tensors)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+def test_kernel_variant_rule(dtype, head_dim):
+    """The variant is a pure function of (dtype, head_dim): tensor cores for
+    K1 and K3 at bf16 and head_dim 64 or 128, the CUDA-core float32 kernel
+    for everything else and always for K2."""
+    tensor_core = dtype == torch.bfloat16 and head_dim in (64, 128)
+    for name in ("flash_fwd", "flash_bwd_dkv"):
+        assert pa.kernel_variant(name, dtype, head_dim) == (
+            pa.TENSOR_CORE if tensor_core else pa.CUDA_CORE)
+    assert pa.kernel_variant("flash_bwd_dq", dtype, head_dim) == pa.CUDA_CORE
+
+
+def test_tma_alignment_check():
+    """A contiguous view at an odd offset into its storage is refused for
+    the tensor-core variant; tensors from the allocator pass."""
+    flat = torch.zeros(2 * 64 * 64 + 8, dtype=torch.bfloat16)
+    aligned = torch.zeros((2, 64, 1, 64), dtype=torch.bfloat16)
+    pa._check_tma_alignment("flash_fwd", aligned, aligned)
+    for offset in (1, 4):  # 2 and 8 bytes in
+        view = flat[offset:offset + 2 * 64 * 64].view(2, 64, 1, 64)
+        assert view.is_contiguous()
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            pa._check_tma_alignment("flash_fwd", aligned, view)
+    pa._check_tma_alignment("flash_fwd",
+                            flat[8:8 + 2 * 64 * 64].view(2, 64, 1, 64))
+
+
+@pytest.mark.parametrize("kernel,group", [
+    ("_ZN8hvdflash16flash_fwd_kernelILi64E13__nv_bfloat16EEvPKT0_",
+     "K1 flash_fwd"),
+    ("_ZN8hvdflash22flash_fwd_wgmma_kernelILi64EEEv14CUtensorMap_st",
+     "K1 flash_fwd"),
+    ("_ZN8hvdflash19flash_bwd_dq_kernelILi64E13__nv_bfloat16EEv",
+     "K2 flash_bwd_dq"),
+    ("_ZN8hvdflash20flash_bwd_dkv_kernelILi64EfEEvPKT0_", "K3 flash_bwd_dkv"),
+    ("_ZN8hvdflash26flash_bwd_dkv_wgmma_kernelILi64EEEv14CUtensorMap_st",
+     "K3 flash_bwd_dkv"),
+    ("void at::native::vectorized_elementwise_kernel<4>", "other"),
+])
+def test_profile_groups_name_both_variants(kernel, group):
+    """lm_bench --profile-steps reports K1 and K3 as their own groups
+    whichever variant ran."""
+    from horovod_tpu_torch.benchmarks.lm_bench import kernel_group
+    assert kernel_group(kernel) == group
 
 
 def test_cpu_tensors_never_load_a_kernel(monkeypatch):
