@@ -10,7 +10,7 @@ Phases, each fatal on failure (the last line is printed only when all pass):
 3. each kernel against its plain PyTorch version on the same inputs, at
    the LM's shape [8, 1024, 12, 64] bf16 causal (timed, beside its bound,
    torch's scaled_dot_product_attention as a yardstick the port never
-   calls, and the CUDA-core variant of K1 and K3 as "ms_before"; with every
+   calls, and each kernel's CUDA-core variant as "ms_before"; with every
    output's max abs error against a float64 dense attention on the same
    inputs, for kernel and plain version), at small bf16 shapes that reach
    the tensor-core variant's edges (ragged T, q_offset, non-causal, head
@@ -20,8 +20,8 @@ Phases, each fatal on failure (the last line is printed only when all pass):
 4. the main path: the LM benchmark's own entry point
    (horovod_tpu_torch.benchmarks.lm_bench) at its full default width on this
    card, NCCL world of one, launch counters set to 0 just before and read
-   just after: every step must launch each kernel once per layer, every K1
-   and K3 launch must take the tensor-core variant, and the loss must start
+   just after: every step must launch each kernel once per layer, every
+   launch must take the tensor-core variant, and the loss must start
    near ln(vocab), stay finite and fall;
 5. a "kernels" JSON line, then {"ok": true, "device": {...}} as the last
    line.
@@ -49,8 +49,8 @@ SLICE_SHAPE = (8, 1024, 12, 64)  # lm_bench defaults: batch, seq, heads, d/h
 WARMUP, PER_ITER, ITERS = 3, 5, 2
 # bf16 outputs round once from float32 sums taken in another order: two
 # bf16 ulps (2**-6 relative) plus an absolute floor; float32 as the JAX
-# package's own kernel tests. The tensor-core variant of K1 and K3 also
-# rounds P (and dS) to bf16 before a product: flash_attention.TC_TOL.
+# package's own kernel tests. The tensor-core variants also round P or dS
+# to bf16 before a product: flash_attention.TC_TOL.
 TOL = {"torch.bfloat16": (2 ** -6, 2e-3), "torch.float32": (2e-5, 2e-5)}
 GRAD_TOL_F32 = (5e-4, 5e-4)
 KERNELS = [
@@ -162,7 +162,7 @@ def kernel_tol(pa, name, q):
 
 
 def f64_reference(torch, q, k, v, do, causal, q_offset=0):
-    """O, dK, dV of dense attention in float64 from the same inputs."""
+    """O, dQ, dK, dV of dense attention in float64 from the same inputs."""
     q64, k64, v64, do64 = (t.double().transpose(1, 2).contiguous()
                            for t in (q, k, v, do))
     for t in (q64, k64, v64):
@@ -174,7 +174,8 @@ def f64_reference(torch, q, k, v, do, causal, q_offset=0):
         s = s.masked_fill(rows < cols, float("-inf"))
     o64 = torch.softmax(s, -1) @ v64
     o64.backward(do64)
-    return [t.transpose(1, 2) for t in (o64.detach(), k64.grad, v64.grad)]
+    return [t.transpose(1, 2)
+            for t in (o64.detach(), q64.grad, k64.grad, v64.grad)]
 
 
 def card_line() -> str:
@@ -218,9 +219,9 @@ def phase_slice_kernels(torch, pa, card):
         ms=graph_ms(torch, lambda: pa.flash_bwd_dq(q, k, v, do, lse_ref,
                                                    delta, *args)),
         plain_ms=cuda_ms(torch, lambda: pa.flash_bwd_dq_plain(
-            q, k, v, do, lse_ref, delta, *args), iters=5))
-    # K2 keeps its first design: its time before is its time now
-    res["flash_bwd_dq"]["ms_before"] = res["flash_bwd_dq"]["ms"]
+            q, k, v, do, lse_ref, delta, *args), iters=5),
+        ms_before=graph_ms(torch, lambda: pa.run_flash_bwd_dq(
+            q, k, v, do, lse_ref, delta, True, scale, 0, pa.CUDA_CORE)))
 
     dk_ref, dv_ref = pa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta,
                                             *args)
@@ -240,7 +241,8 @@ def phase_slice_kernels(torch, pa, card):
 
     # what each rounding costs: kernel and plain version against float64
     for name, got, want, exact in zip(
-            ("O", "dK", "dV"), (o, dk, dv), (o_ref, dk_ref, dv_ref),
+            ("O", "dQ", "dK", "dV"), (o, dq, dk, dv),
+            (o_ref, dq_ref, dk_ref, dv_ref),
             f64_reference(torch, q, k, v, do, causal=True)):
         log(f"[kernel] {name} {list(SLICE_SHAPE)} bf16 causal vs float64 "
             f"dense: kernel max abs err "
@@ -306,7 +308,7 @@ def phase_small_bf16(torch, pa):
     """The kernels at small bf16 shapes that reach the tensor-core
     variant's edges: ragged T (TMA's zero fill, the column masks),
     q_offset, non-causal, head dim 128 (two swizzle atoms a row); every
-    K1 and K3 launch must take the tensor-core variant."""
+    launch must take the tensor-core variant."""
     cases = [  # (batch, seq_q, seq_k, heads, head_dim, causal, block, q_off)
         (2, 200, 200, 3, 64, True, 40, 0),
         (2, 200, 200, 3, 64, False, 40, 0),
@@ -344,9 +346,9 @@ def phase_small_bf16(torch, pa):
                                      kernel_tol(pa, "flash_bwd_dkv", q),
                                      f"K3 {name} {what}"))
         tc = pa.tc_launch_counts()
-        check(tc == {"flash_fwd": 1, "flash_bwd_dkv": 1},
+        check(tc == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1},
               f"{what}: tensor-core launches {tc}, want one each")
-        log(f"[kernel] {what}: max abs err {max(errs):.3e} (K1, K3 "
+        log(f"[kernel] {what}: max abs err {max(errs):.3e} (K1-K3 "
             f"tensor-core, tol rtol {pa.TC_TOL[0]:.3e} atol "
             f"{pa.TC_TOL[1]:.3e}; lse 2e-5)")
 

@@ -80,11 +80,12 @@ def model_flops_per_step(args, batch: int) -> float:
 
 
 # kernel-name substrings -> the group a kernel's device time is reported in
-# (K1 and K3 by either variant: CUDA-core or tensor-core)
+# (K1-K3 by either variant: CUDA-core or tensor-core)
 _KERNEL_GROUPS = (
     ("flash_fwd_kernel", "K1 flash_fwd"),
     ("flash_fwd_wgmma_kernel", "K1 flash_fwd"),
     ("flash_bwd_dq_kernel", "K2 flash_bwd_dq"),
+    ("flash_bwd_dq_wgmma_kernel", "K2 flash_bwd_dq"),
     ("flash_bwd_dkv_kernel", "K3 flash_bwd_dkv"),
     ("flash_bwd_dkv_wgmma_kernel", "K3 flash_bwd_dkv"),
     ("nccl", "nccl"),
@@ -100,10 +101,8 @@ def kernel_group(name: str) -> str:
 
 
 def profile_steps(run_batch, wait, steps: int) -> dict:
-    """Device time of ``steps`` training steps by kernel group, the ten
-    costliest kernels, and the device's busy share of the traced wall time
-    (the profiler's own overhead lengthens that wall time, so the share is
-    a lower bound)."""
+    """Trace ``steps`` training steps with torch.profiler and summarise
+    the device's side of them (``summarize_profile``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -117,24 +116,36 @@ def profile_steps(run_batch, wait, steps: int) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device-side kernels only: a user annotation (Optimizer.step, ...)
     # spans kernels already counted
-    kernels = [(evt.key, evt.self_device_time_total / 1e3)
+    kernels = [(evt.key, evt.self_device_time_total / 1e3, evt.count)
                for evt in prof.key_averages()
                if evt.device_type == DeviceType.CUDA
                and not getattr(evt, "is_user_annotation", False)
                and evt.self_device_time_total > 0]
+    return summarize_profile(kernels, steps, wall_ms)
+
+
+def summarize_profile(kernels, steps: int, wall_ms: float) -> dict:
+    """Per step, from ``kernels`` = (name, total device ms, launches) of
+    each device kernel over ``steps`` traced steps taking ``wall_ms``:
+    device time by kernel group, the ten costliest kernels, the launches
+    (every device kernel, copies and fills included: each is one call the
+    host makes), and the device's busy share of the traced wall time (the
+    profiler's own overhead lengthens that wall time, so the share is a
+    lower bound)."""
     groups: dict = {}
-    for name, ms in kernels:
+    for name, ms, _ in kernels:
         group = kernel_group(name)
         groups[group] = groups.get(group, 0.0) + ms / steps
-    busy_ms = sum(ms for _, ms in kernels) / steps
+    busy_ms = sum(ms for _, ms, _ in kernels) / steps
     top = sorted(kernels, key=lambda kv: -kv[1])[:10]
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": busy_ms,
             "device_busy_share": busy_ms / (wall_ms / steps),
+            "launches_per_step": sum(n for _, _, n in kernels) / steps,
             "groups_ms_per_step": dict(sorted(groups.items(),
                                               key=lambda kv: -kv[1])),
             "top_kernels_ms_per_step": [(n[:120], ms / steps)
-                                        for n, ms in top]}
+                                        for n, ms, _ in top]}
 
 
 def main(argv: Optional[List[str]] = None) -> dict:

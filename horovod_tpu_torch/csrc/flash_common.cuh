@@ -7,12 +7,12 @@
 // loops over the other sequence axis; that loop takes the place of the
 // sequential ("arbitrary") grid axis of the Pallas kernels.
 //
-// The CUDA-core kernels (every K2, and K1/K3 for float32 or a bf16 head
-// dim the tensor-core variant does not take) compute every product in
-// float32 on the CUDA cores, from tiles staged in shared memory as float32
-// (bf16 inputs are widened on load), as the Pallas kernels widen every
-// block with astype(float32): P is never rounded to bf16 before a product.
-// The tensor-core variants of K1 and K3 (bf16, head dim 64 or 128) build on
+// The CUDA-core kernels (float32, or a bf16 head dim the tensor-core
+// variant does not take) compute every product in float32 on the CUDA
+// cores, from tiles staged in shared memory as float32 (bf16 inputs are
+// widened on load), as the Pallas kernels widen every block with
+// astype(float32): P is never rounded to bf16 before a product. The
+// tensor-core variants of K1-K3 (bf16, head dim 64 or 128) build on
 // hopper.cuh and say in their own notes where they round.
 #pragma once
 

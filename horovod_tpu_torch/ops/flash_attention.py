@@ -17,17 +17,18 @@ K2    ``flash_bwd_dq``   ``pallas_attention.py:_bwd_dq_kernel``
 K3    ``flash_bwd_dkv``  ``pallas_attention.py:_bwd_dkv_kernel``
 ====  =================  ==========================================
 
-K1 and K3 have two variants each, and ``kernel_variant(name, dtype,
+Each kernel has two variants, and ``kernel_variant(name, dtype,
 head_dim)`` alone picks one:
 
 - ``"tensor-core wgmma+tma"`` for bfloat16 at head_dim 64 or 128
-  (``flash_fwd_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``): wgmma
-  products fed by TMA through an mbarrier ring. P (and in K3 dS) are
-  rounded to bf16 before the products that take them, so the outputs'
-  tolerance against the plain versions is wider (``TC_TOL``);
+  (``flash_fwd_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``,
+  ``flash_bwd_dkv_wgmma_kernel``): wgmma products fed by TMA through an
+  mbarrier ring. P (K1, K3) and dS (K2, K3) are rounded to bf16 before the
+  products that take them, so the outputs' tolerance against the plain
+  versions is wider (``TC_TOL``);
 - ``"cuda-core f32"`` for everything else (float32 at any head_dim, bf16
-  at 16 and 32), and always for K2: every product in float32 on the CUDA
-  cores, P never rounded, as in the first port.
+  at 16 and 32): every product in float32 on the CUDA cores, P never
+  rounded, as in the first port.
 
 The wrapper asks its library for the chosen variant by number. If that
 kernel cannot build or launch, the wrapper raises; it never retries on
@@ -35,11 +36,11 @@ the other variant. The tensor-core variant also needs 16-byte-aligned
 tensors for TMA, and the wrapper raises on any that are not.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and counts
-the launch in its ``launches`` attribute, and K1 and K3 count their
-tensor-core launches in ``tc_launches`` too. For CPU tensors it runs the
-kernel's plain PyTorch version instead: a blockwise loop with the Pallas
-kernel's own tiling (``block_q``/``block_k``), masking and sentinels, which
-the CPU tests hold against the JAX kernel in interpret mode. The CUDA
+the launch in its ``launches`` attribute, and its tensor-core launches in
+``tc_launches`` too. For CPU tensors it runs the kernel's plain PyTorch
+version instead: a blockwise loop with the Pallas kernel's own tiling
+(``block_q``/``block_k``), masking and sentinels, which the CPU tests
+hold against the JAX kernel in interpret mode. The CUDA
 kernels tile by 64 rows whatever the blocks are; tiles that differ only in
 how a sum is split agree to float32 rounding. delta = rowsum(dO * O) is a
 torch op outside the kernels, as the JAX package computes it outside its
@@ -63,7 +64,7 @@ _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 CUDA_CORE = "cuda-core f32"
 TENSOR_CORE = "tensor-core wgmma+tma"
 _VARIANT_CODES = {CUDA_CORE: 0, TENSOR_CORE: 1}  # csrc/flash_common.cuh
-_TC_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+_TC_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 _TC_HEAD_DIMS = (64, 128)  # one or two 128-byte swizzle atoms a row
 # bf16 outputs of the tensor-core variant against the plain versions
 # (rtol, atol). rtol: two bf16 ulps, as for the CUDA-core kernels (both
@@ -72,18 +73,28 @@ _TC_HEAD_DIMS = (64, 128)  # one or two 128-byte swizzle atoms a row
 # so an output moves by at most 2**-9 * sum |terms|. With unit-scale
 # inputs and T <= 1024 that sum stays below 8: for O a P-weighted mean of
 # |V| (at most max |V|, about 5), for dV and dK a column sum of P (about
-# ln T + 1) times a unit |dO| or |Q| * scale; hence 2**-9 * 8 = 2**-6. The
-# largest errors measured against it are in PERF.md.
+# ln T + 1) times a unit |dO| or |Q| * scale; hence 2**-9 * 8 = 2**-6.
+# K2 rounds only dS before dS K, and takes the same tolerance. Its sum,
+# sum_k |dS_ik| |K_kd|, weights |K_kd| by |dS_ik|, and sum_k |dS_ik| =
+# scale * sum_k P_ik |dP_ik - delta_i| is the P-weighted mean absolute
+# deviation of dO_i . V_k * scale (delta_i = sum_k P_ik dP_ik up to O's
+# rounding): a projection of unit-scale inputs with a standard deviation
+# of about 1, below 1.5 in every row. Times max |K| (below 6) that caps
+# the sum at 9, but the two maxima do not meet: the weight spreads over
+# many k, and the sum stays below 3, well inside 8
+# (test_torch_kernels.py::test_dq_rounding_sum_stays_below_tc_tol_bound,
+# T = 1024, head_dim 64 and 128). The largest errors measured against
+# TC_TOL are in PERF.md.
 TC_TOL = (2 ** -6, 2 ** -6)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = {  # the last int of K1 and K3 is the variant
+_ARGTYPES = {  # the last int of each is the variant
     "flash_fwd": ("hvd_flash_fwd",
                   [_P, _P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P]),
     "flash_bwd_dq": ("hvd_flash_bwd_dq",
-                     [_P] * 7 + [_I] * 8 + [_F, _P]),
+                     [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
     "flash_bwd_dkv": ("hvd_flash_bwd_dkv",
                       [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
 }
@@ -91,8 +102,8 @@ _ARGTYPES = {  # the last int of K1 and K3 is the variant
 
 def kernel_variant(name: str, dtype: torch.dtype, head_dim: int) -> str:
     """The variant kernel ``name`` launches for CUDA tensors of ``dtype``
-    and ``head_dim``: tensor cores for K1 and K3 at bf16 and head_dim 64
-    or 128, the CUDA-core float32 kernel otherwise."""
+    and ``head_dim``: tensor cores at bf16 and head_dim 64 or 128, the
+    CUDA-core float32 kernel otherwise."""
     if (name in _TC_KERNELS and dtype == torch.bfloat16
             and head_dim in _TC_HEAD_DIMS):
         return TENSOR_CORE
@@ -327,15 +338,28 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, block_q, block_k,
     if not q.is_cuda:
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale,
                                   block_q, block_k, q_offset)
+    variant = kernel_variant("flash_bwd_dq", q.dtype, q.shape[-1])
+    dq = run_flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, q_offset,
+                          variant)
+    flash_bwd_dq.launches += 1
+    flash_bwd_dq.tc_launches += variant == TENSOR_CORE
+    return dq
+
+
+def run_flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, q_offset,
+                     variant):
+    """Launch K2's ``variant`` on CUDA tensors, uncounted (the wrapper
+    counts)."""
     code, (q, k, v, do) = _check_kernel_inputs("flash_bwd_dq", q, k, v, do)
     batch, seq_q, heads, head_dim = q.shape
     lse, delta = _rows(lse, q), _rows(delta, q)
+    if variant == TENSOR_CORE:
+        _check_tma_alignment("flash_bwd_dq", q, k, v, do)
     dq = torch.empty_like(q)
     _launch("flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), batch, heads, seq_q, k.shape[1], head_dim, code,
-            int(causal), q_offset, scale)
-    flash_bwd_dq.launches += 1
+            int(causal), q_offset, scale, _VARIANT_CODES[variant])
     return dq
 
 
@@ -374,17 +398,15 @@ def run_flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, q_offset,
     return dk, dv
 
 
-flash_fwd.launches = flash_fwd.tc_launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = flash_bwd_dkv.tc_launches = 0
 KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 
 
 def reset_launch_counts() -> None:
     for wrapper in KERNEL_WRAPPERS:
-        wrapper.launches = 0
-        if wrapper.__name__ in _TC_KERNELS:
-            wrapper.tc_launches = 0
+        wrapper.launches = wrapper.tc_launches = 0
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:
@@ -392,10 +414,9 @@ def launch_counts() -> dict:
 
 
 def tc_launch_counts() -> dict:
-    """Launches of the tensor-core variant, by kernel (K1 and K3)."""
+    """Launches of the tensor-core variant, by kernel."""
     return {wrapper.__name__: wrapper.tc_launches
-            for wrapper in KERNEL_WRAPPERS
-            if wrapper.__name__ in _TC_KERNELS}
+            for wrapper in KERNEL_WRAPPERS}
 
 
 def row_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:

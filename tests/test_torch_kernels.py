@@ -9,11 +9,11 @@ port's dense attention.
 Tolerances: float32 outputs within 2e-5 (sums of the same float32 products
 in another order); bf16 outputs of the CUDA-core kernels round once from
 float32 sums, so within two bf16 ulps (2**-6 relative) plus 2e-3 absolute
-for values near 0; the float32 lse within 2e-5. The tensor-core variant
-of K1 and K3 (bf16 at head_dim 64 and 128) also rounds P, and in K3 dS,
-to bf16 before the products that take them, so its O, dK and dV get the
-wider ``pa.TC_TOL`` (its derivation is beside it); lse keeps 2e-5, since
-the row sums are taken from the float32 P.
+for values near 0; the float32 lse within 2e-5. The tensor-core variants
+(bf16 at head_dim 64 and 128) also round P (K1, K3) and dS (K2, K3) to
+bf16 before the products that take them, so their O, dQ, dK and dV get
+the wider ``pa.TC_TOL`` (its derivation is beside it); lse keeps 2e-5,
+since the row sums are taken from the float32 P.
 """
 
 import numpy as np
@@ -98,7 +98,7 @@ def test_kernels_handle_ragged_tiles(causal):
 ])
 def test_tensor_core_variant_matches_plain_versions(shape, causal, block,
                                                     q_offset):
-    """bf16 K1 and K3 take the tensor-core variant, and only it."""
+    """bf16 K1-K3 take the tensor-core variant, and only it."""
     batch, seq_q, heads, head_dim = shape
     seq_k = 256 if q_offset else seq_q
     q, do = _inputs(shape, 25, n=2, device="cuda", dtype=torch.bfloat16)
@@ -106,7 +106,8 @@ def test_tensor_core_variant_matches_plain_versions(shape, causal, block,
                    dtype=torch.bfloat16)
     pa.reset_launch_counts()
     _check_all(q, k, v, do, causal, block, q_offset)
-    assert pa.tc_launch_counts() == {"flash_fwd": 1, "flash_bwd_dkv": 1}
+    assert pa.tc_launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                     "flash_bwd_dkv": 1}
     assert pa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1,
                                   "flash_bwd_dkv": 1}
 
@@ -118,10 +119,14 @@ def test_tensor_core_variant_refuses_misaligned_tensors():
     flat = torch.zeros(2 * 64 * 64 + 1, device="cuda", dtype=torch.bfloat16)
     q = flat[1:].view(2, 64, 1, 64)
     assert q.is_contiguous() and q.data_ptr() % 16
+    rows = torch.zeros((2, 64), device="cuda")
     pa.reset_launch_counts()
     with pytest.raises(ValueError, match="16-byte"):
         pa.flash_fwd(q, q, q, True, 0.125, 64, 64, 0)
-    assert pa.launch_counts()["flash_fwd"] == 0
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.flash_bwd_dq(q, q, q, q, rows, rows, True, 0.125, 64, 64, 0)
+    assert pa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                  "flash_bwd_dkv": 0}
 
 
 @needs_cuda
@@ -200,13 +205,41 @@ def test_kernel_input_checks(k_shape, dtype, error, match):
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 def test_kernel_variant_rule(dtype, head_dim):
     """The variant is a pure function of (dtype, head_dim): tensor cores for
-    K1 and K3 at bf16 and head_dim 64 or 128, the CUDA-core float32 kernel
-    for everything else and always for K2."""
+    K1-K3 at bf16 and head_dim 64 or 128, the CUDA-core float32 kernel for
+    everything else."""
     tensor_core = dtype == torch.bfloat16 and head_dim in (64, 128)
-    for name in ("flash_fwd", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         assert pa.kernel_variant(name, dtype, head_dim) == (
             pa.TENSOR_CORE if tensor_core else pa.CUDA_CORE)
-    assert pa.kernel_variant("flash_bwd_dq", dtype, head_dim) == pa.CUDA_CORE
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"])
+def test_entry_points_take_the_variant_before_the_stream(name):
+    """Each C entry point's last two arguments are the variant (an int) and
+    the stream (a pointer), so the wrapper asks for a variant by number."""
+    _, argtypes = pa._ARGTYPES[name]
+    assert argtypes[-2:] == [pa._I, pa._P]
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_dq_rounding_sum_stays_below_tc_tol_bound(head_dim):
+    """TC_TOL's derivation for K2: rounding dS to bf16 moves dQ_id by at
+    most 2**-9 * sum_k |dS_ik| |K_kd|, and that sum stays below 8 for
+    unit-scale inputs at T = 1024, so 2**-9 * 8 = TC_TOL's atol covers it."""
+    seq = 1024
+    q, k, v, do = _inputs((1, seq, 2, head_dim), 33, dtype=torch.bfloat16)
+    scale = head_dim ** -0.5
+    o, lse = pa.flash_fwd_plain(q, k, v, True, scale, 512, 512, 0)
+    delta = pa.row_delta(o, do)
+    qb, kb, vb, dob = (pa._to_bh(t).float() for t in (q, k, v, do))
+    s = (qb * scale) @ kb.transpose(-1, -2)
+    s = s.masked_fill(torch.ones(seq, seq, dtype=torch.bool).triu(1),
+                      float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    ds = p * (dob @ vb.transpose(-1, -2) - delta[..., None]) * scale
+    assert float((ds.abs() @ kb.abs()).max()) < 8
+    assert 2 ** -9 * 8 <= pa.TC_TOL[1]
 
 
 def test_tma_alignment_check():
@@ -231,13 +264,15 @@ def test_tma_alignment_check():
      "K1 flash_fwd"),
     ("_ZN8hvdflash19flash_bwd_dq_kernelILi64E13__nv_bfloat16EEv",
      "K2 flash_bwd_dq"),
+    ("_ZN8hvdflash25flash_bwd_dq_wgmma_kernelILi64EEEv14CUtensorMap_st",
+     "K2 flash_bwd_dq"),
     ("_ZN8hvdflash20flash_bwd_dkv_kernelILi64EfEEvPKT0_", "K3 flash_bwd_dkv"),
     ("_ZN8hvdflash26flash_bwd_dkv_wgmma_kernelILi64EEEv14CUtensorMap_st",
      "K3 flash_bwd_dkv"),
     ("void at::native::vectorized_elementwise_kernel<4>", "other"),
 ])
 def test_profile_groups_name_both_variants(kernel, group):
-    """lm_bench --profile-steps reports K1 and K3 as their own groups
+    """lm_bench --profile-steps reports K1-K3 as their own groups
     whichever variant ran."""
     from horovod_tpu_torch.benchmarks.lm_bench import kernel_group
     assert kernel_group(kernel) == group
@@ -254,3 +289,21 @@ def test_cpu_tensors_never_load_a_kernel(monkeypatch):
     q.requires_grad_()
     pa.flash_attention(q, k, v, causal=True).backward(do)
     assert q.grad is not None
+
+
+def test_profile_summary_counts_launches_per_step():
+    """lm_bench's profile reports device time by group and the device
+    kernels launched per step, copies and fills included."""
+    from horovod_tpu_torch.benchmarks.lm_bench import summarize_profile
+    kernels = [
+        ("_ZN8hvdflash25flash_bwd_dq_wgmma_kernelILi64EEEv14CUtensorMap_st",
+         3.0, 36),
+        ("ampere_bf16_s16816gemm_bf16_128x128", 6.0, 90),
+        ("Memcpy HtoD (Pageable -> Device)", 0.3, 6),
+    ]
+    out = summarize_profile(kernels, steps=3, wall_ms=15.0)
+    assert out["launches_per_step"] == 44
+    assert out["device_ms_per_step"] == pytest.approx(3.1)
+    assert out["device_busy_share"] == pytest.approx(3.1 / 5.0)
+    assert out["groups_ms_per_step"] == pytest.approx(
+        {"matmul": 2.0, "K2 flash_bwd_dq": 1.0, "other": 0.1})
